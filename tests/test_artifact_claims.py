@@ -1,5 +1,5 @@
 """Machine check: every measurement artifact the repo's records claim
-must actually exist in git (VERDICT r4 weak #1 / next-round #2).
+must actually exist in git.
 
 Three consecutive rounds committed prose claiming artifacts
 (`KSWEEP_r3.json`, `SPGEMM_STUDY_r4.json`, `DEGREE_SWEEP_r4.json`, ...)
@@ -62,8 +62,8 @@ def _tracked() -> set:
 def _scan_files():
     files = [REPO / p for p in PROSE if (REPO / p).exists()]
     files += sorted((REPO / "docs").glob("*.md"))
-    files += sorted((REPO / "maxk_tpu").rglob("*.py"))
-    for name in ("bench.py", "train.py", "__graft_entry__.py"):
+    files += sorted((REPO / "maxk_gnn").rglob("*.py"))
+    for name in ("bench.py", "train.py", "chip_smoke.py"):
         if (REPO / name).exists():
             files.append(REPO / name)
     return files

@@ -3,14 +3,14 @@
 import numpy as np
 import pytest
 
-from maxk_tpu.data.datasets import DATASETS, load_dataset
-from maxk_tpu.data.io import (
+from maxk_gnn.data.datasets import DATASETS, load_dataset
+from maxk_gnn.data.io import (
     list_graph_binaries,
     load_graph_binary,
     save_graph_binary,
 )
-from maxk_tpu.data.synthetic import rmat_graph
-from maxk_tpu.sparse.csr import csr_to_scipy
+from maxk_gnn.data.synthetic import rmat_graph
+from maxk_gnn.sparse.csr import csr_to_scipy
 
 
 def test_rmat_graph_structure():

@@ -5,21 +5,23 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from maxk_tpu.ops.dispatch import KernelMode, resolve_mode
-from maxk_tpu.ops.spgemm import maxk_spgemm, spmm
-from maxk_tpu.ops.spmm_xla import spmm_segsum, spmm_tiles_xla
-from maxk_tpu.sparse.cbsr import maxk_cbsr
-from maxk_tpu.sparse.csr import CSRGraph, csr_from_coo
-from maxk_tpu.sparse.graph import build_graph
-from maxk_tpu.sparse.meta import build_edge_tiles
+from maxk_gnn.ops.dispatch import KernelMode, resolve_mode
+from maxk_gnn.ops.spgemm import maxk_spgemm, spmm
+from maxk_gnn.ops.spmm_xla import spmm_segsum, spmm_tiles_xla
+from maxk_gnn.sparse.cbsr import maxk_cbsr
+from maxk_gnn.sparse.csr import CSRGraph, csr_from_coo
+from maxk_gnn.sparse.graph import build_graph
+from maxk_gnn.sparse.meta import build_edge_tiles
 
 
 def test_resolve_mode_explicit_and_auto():
     assert resolve_mode("segsum", True) == KernelMode.SEGSUM
     assert resolve_mode("tiles_scan", True) == KernelMode.TILES_SCAN
-    # auto on CPU → segsum regardless of tiles
-    assert resolve_mode("auto", True) == KernelMode.SEGSUM
+    # auto runs whatever schedule the graph was built with
+    # (`ops/dispatch.choose_mode` decided before the build)
     assert resolve_mode("auto", False) == KernelMode.SEGSUM
+    assert resolve_mode("auto", True) == KernelMode.TILES_SCAN
+    assert resolve_mode("auto", False, True) == KernelMode.HYBRID
 
 
 def test_graph_symmetric_autodetect(small_graph):
@@ -80,7 +82,7 @@ def test_spgemm_jit_and_grad_composition(small_graph):
     assert np.isfinite(np.asarray(g1)).all()
 
     def loss_ref(x):
-        from maxk_tpu.sparse.cbsr import cbsr_densify
+        from maxk_gnn.sparse.cbsr import cbsr_densify
 
         cbsr = maxk_cbsr(x, 4)
         return jnp.sum(spmm_segsum(graph.csr, cbsr_densify(cbsr, 32)) ** 2)
@@ -90,8 +92,8 @@ def test_spgemm_jit_and_grad_composition(small_graph):
 
 
 def test_lookahead_chain_with_weight_decay(tiny_data):
-    from maxk_tpu.train.loop import train
-    from maxk_tpu.train.config import TrainConfig
+    from maxk_gnn.train.loop import train
+    from maxk_gnn.train.config import TrainConfig
 
     cfg = TrainConfig(
         dataset="flickr", model="sage", epochs=10, lr=0.01,

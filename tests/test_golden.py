@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import pytest
 
-from maxk_tpu.train.golden import GOLDEN, run_golden
+from maxk_gnn.train.golden import GOLDEN, run_golden
 
 pytestmark = pytest.mark.golden
 

@@ -7,19 +7,21 @@ end-to-end through training — the validation bar the reference sets for
 its kernels (`direct_kernel_interface.py:221-372`) plus gradient checks.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from maxk_tpu.data.synthetic import rmat_graph
-from maxk_tpu.ops.spgemm import maxk_spgemm, spmm
-from maxk_tpu.ops.spmm_hybrid import spmm_hybrid
-from maxk_tpu.ops.spmm_xla import spmm_segsum
-from maxk_tpu.sparse.cbsr import maxk_cbsr
-from maxk_tpu.sparse.csr import CSRGraph, csr_transpose, with_norm
-from maxk_tpu.sparse.graph import build_graph
-from maxk_tpu.sparse.hybrid import (
+from maxk_gnn.data.synthetic import rmat_graph
+from maxk_gnn.ops.spgemm import maxk_spgemm, spmm
+from maxk_gnn.ops.spmm_hybrid import spmm_hybrid
+from maxk_gnn.ops.spmm_xla import spmm_segsum
+from maxk_gnn.sparse.cbsr import maxk_cbsr
+from maxk_gnn.sparse.csr import CSRGraph, csr_transpose, with_norm
+from maxk_gnn.sparse.graph import build_graph
+from maxk_gnn.sparse.hybrid import (
     build_hybrid,
     build_hybrid_device,
     check_hybrid_ok,
@@ -114,7 +116,7 @@ def test_build_graph_hybrid_spmm_and_maxk_modes():
 
     cbsr = maxk_cbsr(x, 8)
     ym = maxk_spgemm(g, cbsr, dim=D, mode="hybrid")
-    from maxk_tpu.sparse.cbsr import cbsr_densify
+    from maxk_gnn.sparse.cbsr import cbsr_densify
 
     refm = spmm_segsum(g.csr, cbsr_densify(cbsr, D))
     np.testing.assert_allclose(np.asarray(ym), np.asarray(refm), atol=1e-2)
@@ -123,12 +125,12 @@ def test_build_graph_hybrid_spmm_and_maxk_modes():
     ct = _x(csr.num_nodes, seed=10)
     gv = jax.grad(
         lambda v: jnp.vdot(
-            maxk_spgemm(g, cbsr.replace(values=v), dim=D, mode="hybrid"), ct
+            maxk_spgemm(g, dataclasses.replace(cbsr, values=v), dim=D, mode="hybrid"), ct
         )
     )(cbsr.values)
     gv_ref = jax.grad(
         lambda v: jnp.vdot(
-            spmm_segsum(g.csr, cbsr_densify(cbsr.replace(values=v), D)), ct
+            spmm_segsum(g.csr, cbsr_densify(dataclasses.replace(cbsr, values=v), D)), ct
         )
     )(cbsr.values)
     # 2e-2: the tail arm gathers (and backpropagates) in the bf16 strip
@@ -137,7 +139,7 @@ def test_build_graph_hybrid_spmm_and_maxk_modes():
 
 
 def test_hybrid_rejects_directed_graph():
-    from maxk_tpu.sparse.csr import CSRGraph
+    from maxk_gnn.sparse.csr import CSRGraph
 
     # a 3-node directed chain: 0→1→2 (no reverse edges)
     csr = CSRGraph(
@@ -151,8 +153,8 @@ def test_hybrid_rejects_directed_graph():
 
 
 def test_training_with_hybrid_mode(tiny_data):
-    from maxk_tpu.train.config import TrainConfig
-    from maxk_tpu.train.loop import train
+    from maxk_gnn.train.config import TrainConfig
+    from maxk_gnn.train.loop import train
 
     cfg = TrainConfig(
         dataset="tiny", model="sage", epochs=30, hidden_dim=32,
@@ -165,23 +167,37 @@ def test_training_with_hybrid_mode(tiny_data):
 
 def test_auto_strip_cols_working_set():
     """The strip budget must subtract the SpMM working set at scale
-    (the r2 suite OOMed at ogbn-products until it did) and keep the
-    probe-tuned width where HBM allows."""
-    from maxk_tpu.sparse.hybrid import auto_strip_cols, hybrid_profitable
+    (ogbn-products does not fit otherwise) and keep the default width
+    where memory allows. Budgets are given explicitly: the one H100
+    (`bytes_limit` at the default 0.75 fraction) and a 16 GB device."""
+    from maxk_gnn.ops.dispatch import DEVICE_CONSTANTS
+    from maxk_gnn.sparse.hybrid import auto_strip_cols, hybrid_profitable
 
+    h100 = DEVICE_CONSTANTS["NVIDIA H100 80GB HBM3"]
+    card, small = 63_763_120_128, 16_000_000_000
     # reddit published scale: working set is small -> full default width
-    assert auto_strip_cols(232965, e_live=79_000_000) == 16384
-    # products published scale: (V,256) f32 buffers eat ~12 GB -> the
-    # strip shrinks to a positive, lane-aligned width that still fits
-    s = auto_strip_cols(2_449_029, e_live=123_700_000)
+    assert auto_strip_cols(232965, e_live=79_000_000, memory=card) == 16384
+    # products published scale: (V,256) f32 buffers eat ~12 GB -> on a
+    # 16 GB device the strip shrinks to a positive, lane-aligned width
+    s = auto_strip_cols(2_449_029, e_live=123_700_000, memory=small)
     assert 0 < s < 1024 and s % 128 == 0
-    # and the planning rule still takes the hybrid on both
-    assert hybrid_profitable(232965, 79_000_000)
-    assert hybrid_profitable(2_449_029, 123_700_000)
-    # flickr-density graphs stay on the tile path
-    assert not hybrid_profitable(89250, 1_900_000)
+    s_card = auto_strip_cols(2_449_029, e_live=123_700_000, memory=card)
+    assert s < s_card <= 16384 and s_card % 128 == 0
+    # with the H100's measured rates the planning rule rejects the hybrid
+    # on reddit, as the measured training step did (PERF.md), and takes
+    # it on products only while the strip is narrow (its cost grows with
+    # the width)
+    for mem in (card, small):
+        assert not hybrid_profitable(232965, 79_000_000, constants=h100,
+                                     memory=mem)
+    assert hybrid_profitable(2_449_029, 123_700_000, constants=h100,
+                             memory=small)
+    assert not hybrid_profitable(2_449_029, 123_700_000, constants=h100,
+                                 memory=card)
+    # flickr-density graphs stay on the gather path
+    assert not hybrid_profitable(89250, 1_900_000, constants=h100, memory=card)
     # a graph too large for any strip row block falls out cleanly
-    assert auto_strip_cols(40_000_000, e_live=500_000_000) == 0
+    assert auto_strip_cols(40_000_000, e_live=500_000_000, memory=card) == 0
 
 
 @pytest.mark.parametrize("rb,t", [(32, 32), (64, 32), (8, 32)])
@@ -190,11 +206,11 @@ def test_hybrid_tail_shapes(rb, t):
     these are probe-tunable knobs (round-2 tail padding work)."""
     import numpy as np
 
-    from maxk_tpu.data.synthetic import rmat_graph
-    from maxk_tpu.ops.spmm_hybrid import spmm_hybrid
-    from maxk_tpu.ops.spmm_xla import spmm_segsum
-    from maxk_tpu.sparse.csr import with_norm
-    from maxk_tpu.sparse.hybrid import build_hybrid, degree_perm, permute_csr
+    from maxk_gnn.data.synthetic import rmat_graph
+    from maxk_gnn.ops.spmm_hybrid import spmm_hybrid
+    from maxk_gnn.ops.spmm_xla import spmm_segsum
+    from maxk_gnn.sparse.csr import with_norm
+    from maxk_gnn.sparse.hybrid import build_hybrid, degree_perm, permute_csr
 
     g = rmat_graph(3000, 40000, seed=7)
     pg = permute_csr(g, degree_perm(g))
@@ -239,7 +255,7 @@ def test_hybrid_banded_tail_matches(band):
 
 
 def test_effective_band_cap():
-    from maxk_tpu.sparse.hybrid import _effective_band
+    from maxk_gnn.sparse.hybrid import _effective_band
 
     # under the cap: width unchanged
     assert _effective_band(100_000, 32_768) == 32_768
@@ -253,7 +269,7 @@ def test_build_graph_hybrid_keeps_tail_tile_shape():
     hybrid tail schedule (tuned per strip dtype: TAIL_EDGE_TILE_INT8 for
     the auto-picked int8 strip on this integer-valued graph,
     TAIL_EDGE_TILE for float strips)."""
-    from maxk_tpu.sparse.hybrid import TAIL_EDGE_TILE, TAIL_EDGE_TILE_INT8
+    from maxk_gnn.sparse.hybrid import TAIL_EDGE_TILE, TAIL_EDGE_TILE_INT8
 
     csr = _graph(seed=31)
     g = build_graph(csr, norm="right", hybrid=True, strip_cols=S,
@@ -269,7 +285,7 @@ def test_build_graph_hybrid_keeps_tail_tile_shape():
 def test_tail_slot_stats_match_built_schedule():
     """The host planning helper predicts exactly the slot counts the
     real builders produce (same ceil/elision rules), banded and not."""
-    from maxk_tpu.sparse.hybrid import tail_slot_stats
+    from maxk_gnn.sparse.hybrid import tail_slot_stats
 
     csr = _graph(v=500, e=4000, seed=21)
     pcsr = permute_csr(csr, degree_perm(csr))
@@ -302,7 +318,7 @@ def test_int8_strip_exact_on_integer_graph():
     """int8 strip (exact on integer-valued graphs, half the HBM of bf16
     → 2× wider strip at the same budget): fwd, transpose and grad match
     the f32 schedule to bf16-feature precision, on both builders."""
-    from maxk_tpu.sparse.hybrid import auto_strip_cols
+    from maxk_gnn.sparse.hybrid import auto_strip_cols
 
     csr = _graph(v=500, e=4000, seed=21)
     pcsr = permute_csr(csr, degree_perm(csr))
@@ -383,8 +399,8 @@ def test_auto_strip_dtype_rule():
     int8 range), bf16 otherwise; equal-HBM default width doubles."""
     import jax.numpy as jnp
 
-    from maxk_tpu.data.synthetic import rmat_graph
-    from maxk_tpu.sparse.hybrid import (
+    from maxk_gnn.data.synthetic import rmat_graph
+    from maxk_gnn.sparse.hybrid import (
         STRIP_COLS,
         auto_strip_cols,
         auto_strip_dtype,
@@ -407,7 +423,7 @@ def test_auto_strip_dtype_rule():
     assert not strip_int8_exact(big)
 
     # measured per-dtype default widths (budget not binding at this V)
-    from maxk_tpu.sparse.hybrid import STRIP_COLS_INT8
+    from maxk_gnn.sparse.hybrid import STRIP_COLS_INT8
 
     s_int8 = auto_strip_cols(200_000, e_live=1_000_000, strip_itemsize=1)
     s_bf16 = auto_strip_cols(200_000, e_live=1_000_000, strip_itemsize=2)
@@ -420,8 +436,8 @@ def test_build_graph_auto_int8_strip(small_graph):
     integer-valued graph and stays exact vs the bf16-strip build."""
     import jax.numpy as jnp
 
-    from maxk_tpu.ops.spgemm import spmm
-    from maxk_tpu.sparse.graph import build_graph
+    from maxk_gnn.ops.spgemm import spmm
+    from maxk_gnn.sparse.graph import build_graph
 
     g8 = build_graph(small_graph, norm="right", hybrid=True,
                      strip_cols=128, build_tiles=False)

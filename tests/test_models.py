@@ -5,8 +5,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from maxk_tpu.models.models import build_model
-from maxk_tpu.sparse.graph import build_graph
+from maxk_gnn.models.models import build_model
+from maxk_gnn.sparse.graph import build_graph
 
 HID, OUT, K = 32, 5, 8
 
@@ -85,9 +85,9 @@ def test_layer_agg_path_equals_explicit_spgemm(small_graph):
     must equal the explicit maxk_spgemm op (used by bench + sharded)."""
     import jax.numpy as jnp
 
-    from maxk_tpu.ops.spgemm import maxk_spgemm, spmm
-    from maxk_tpu.sparse.cbsr import cbsr_densify, maxk_cbsr
-    from maxk_tpu.sparse.graph import build_graph
+    from maxk_gnn.ops.spgemm import maxk_spgemm, spmm
+    from maxk_gnn.sparse.cbsr import cbsr_densify, maxk_cbsr
+    from maxk_gnn.sparse.graph import build_graph
 
     graph = build_graph(small_graph, norm="right", build_tiles=False)
     rng = np.random.default_rng(9)
@@ -101,7 +101,7 @@ def test_layer_agg_path_equals_explicit_spgemm(small_graph):
 
 def test_gin_apply_func_is_mlp(small_graph):
     """The GIN conv's apply_func is the reference's 2-layer MLP
-    (Dense → ReLU → Dense, `/root/reference/GIN:17-21`), not a single
+    (Dense → ReLU → Dense, reference `GIN:17-21`), not a single
     Dense — the reference marks the bare variant as the bug its fixed
     GIN repairs."""
     model, graph, x, variables = _setup(small_graph, "gin")

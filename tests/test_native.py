@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from maxk_tpu.sparse import _native
-from maxk_tpu.sparse.csr import csr_to_scipy
+from maxk_gnn.sparse import _native
+from maxk_gnn.sparse.csr import csr_to_scipy
 
 pytestmark = pytest.mark.skipif(
     not _native.available(), reason="native lib unavailable (no toolchain)"
@@ -18,7 +18,7 @@ def test_native_edge_tiles_match_numpy(small_graph):
     tb, tc, tv, tl = _native.edge_tiles_native(indptr, indices, values, 8, 64)
 
     # numpy reference (the vectorized path in meta.py)
-    import maxk_tpu.sparse.meta as meta
+    import maxk_gnn.sparse.meta as meta
 
     orig = _native.edge_tiles_native
     try:

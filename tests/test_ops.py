@@ -10,12 +10,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from maxk_tpu.ops.spgemm import maxk_spgemm, spmm
-from maxk_tpu.ops.spmm_xla import spmm_dense, spmm_segsum, spmm_tiles_xla
-from maxk_tpu.sparse.cbsr import cbsr_densify, maxk_cbsr
-from maxk_tpu.sparse.csr import csr_to_scipy, with_norm
-from maxk_tpu.sparse.graph import build_graph
-from maxk_tpu.sparse.meta import build_edge_tiles
+from maxk_gnn.ops.spgemm import maxk_spgemm, spmm
+from maxk_gnn.ops.spmm_xla import spmm_dense, spmm_segsum, spmm_tiles_xla
+from maxk_gnn.sparse.cbsr import cbsr_densify, maxk_cbsr
+from maxk_gnn.sparse.csr import csr_to_scipy, with_norm
+from maxk_gnn.sparse.graph import build_graph
+from maxk_gnn.sparse.meta import build_edge_tiles
 
 D = 64
 
@@ -35,7 +35,7 @@ def test_spmm_segsum_matches_scipy(small_graph):
 
 
 def test_spmm_segsum_scan_matches_oneshot(small_graph):
-    from maxk_tpu.ops.spmm_xla import spmm_segsum_scan
+    from maxk_gnn.ops.spmm_xla import spmm_segsum_scan
 
     g = with_norm(small_graph, "right")
     x = _x(small_graph)
@@ -121,7 +121,7 @@ def test_maxk_spgemm_directed_transpose():
     """On a *directed* graph with right-norm, backward must use the true
     transpose (the bug class the reference hit with CSR-metadata-fed
     backward, SURVEY §7)."""
-    from maxk_tpu.sparse.csr import csr_from_coo
+    from maxk_gnn.sparse.csr import csr_from_coo
 
     rng = np.random.default_rng(5)
     v, e = 50, 300
@@ -162,7 +162,7 @@ def test_bf16_compute_dtype_close(small_graph):
 
 
 def test_spmm_tiles_scan_matches_segsum(small_graph):
-    from maxk_tpu.ops.spmm_xla import spmm_tiles_scan
+    from maxk_gnn.ops.spmm_xla import spmm_tiles_scan
 
     g = with_norm(small_graph, "right")
     x = _x(small_graph)
@@ -193,7 +193,7 @@ def test_spmm_custom_vjp_tiles_scan(small_graph):
 
 @pytest.mark.parametrize("accumulate", ["matmul", "scatter"])
 def test_spmm_tiles_scan_accumulate_variants(small_graph, accumulate):
-    from maxk_tpu.ops.spmm_xla import spmm_tiles_scan
+    from maxk_gnn.ops.spmm_xla import spmm_tiles_scan
 
     g = with_norm(small_graph, "right")
     x = _x(small_graph)
@@ -204,7 +204,7 @@ def test_spmm_tiles_scan_accumulate_variants(small_graph, accumulate):
 
 
 def test_spmm_tiles_scan_row_block_1(small_graph):
-    from maxk_tpu.ops.spmm_xla import spmm_tiles_scan
+    from maxk_gnn.ops.spmm_xla import spmm_tiles_scan
 
     g = with_norm(small_graph, "right")
     x = _x(small_graph)

@@ -8,19 +8,19 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from maxk_tpu.parallel.mesh import GRAPH_AXIS, make_mesh
-from maxk_tpu.parallel.shard import build_sharded_graph, shard_rows
-from maxk_tpu.parallel.train import (
+from maxk_gnn.parallel.mesh import GRAPH_AXIS, make_mesh
+from maxk_gnn.parallel.shard import build_sharded_graph, shard_rows
+from maxk_gnn.parallel.train import (
     make_sharded_eval_step,
     make_sharded_train_step,
     sharded_setup,
 )
-from maxk_tpu.ops.spgemm import maxk_spgemm, spmm
-from maxk_tpu.ops.spmm_xla import spmm_segsum
-from maxk_tpu.sparse.cbsr import cbsr_densify, maxk_cbsr
-from maxk_tpu.sparse.csr import with_norm
-from maxk_tpu.sparse.graph import build_graph
-from maxk_tpu.train.config import TrainConfig
+from maxk_gnn.ops.spgemm import maxk_spgemm, spmm
+from maxk_gnn.ops.spmm_xla import spmm_segsum
+from maxk_gnn.sparse.cbsr import cbsr_densify, maxk_cbsr
+from maxk_gnn.sparse.csr import with_norm
+from maxk_gnn.sparse.graph import build_graph
+from maxk_gnn.train.config import TrainConfig
 
 from jax.sharding import NamedSharding, PartitionSpec as P
 
@@ -205,8 +205,8 @@ def test_sharded_agg_uses_post_densify_transform(small_graph):
     layers resample CBSR values from x before maxk_spgemm, so transforms
     applied after densify (the model's dropout) reach the aggregation —
     matching single-device semantics."""
-    from maxk_tpu.models.layers import _AggMixin
-    from maxk_tpu.sparse.cbsr import CBSR
+    from maxk_gnn.models.layers import Agg
+    from maxk_gnn.sparse.cbsr import CBSR
 
     mesh = make_mesh(N_DEV)
     sgraph = build_sharded_graph(small_graph, N_DEV, norm="right")
@@ -222,11 +222,7 @@ def test_sharded_agg_uses_post_densify_transform(small_graph):
 
     ref = spmm(g1, xdrop, mode="segsum")
 
-    class _Layer:
-        kernel_mode = "segsum"
-        compute_dtype = None
-
-    agg = _AggMixin._aggregate.__get__(_Layer())
+    agg = Agg(kernel_mode="segsum")
     out = _sharded_apply(
         mesh,
         sgraph,
@@ -243,7 +239,7 @@ def test_sharded_agg_uses_post_densify_transform(small_graph):
 def test_sharded_hybrid_matches_single(small_graph):
     """Row-partitioned strip hybrid == single-device result (fwd, A^T,
     and the maxk_spgemm gradient) on a degree-permuted symmetric graph."""
-    from maxk_tpu.sparse.hybrid import check_hybrid_ok, degree_perm, permute_csr
+    from maxk_gnn.sparse.hybrid import check_hybrid_ok, degree_perm, permute_csr
 
     assert check_hybrid_ok(small_graph)
     pcsr = permute_csr(small_graph, degree_perm(small_graph))
@@ -342,9 +338,9 @@ def test_halo_stats():
     at reddit-like density the halo exchange does NOT beat the full
     compressed all_gather (each shard's tail references most rows), which
     is why the production collective design is hub-psum-free."""
-    from maxk_tpu.data.synthetic import rmat_graph
-    from maxk_tpu.parallel.shard import halo_stats
-    from maxk_tpu.sparse.hybrid import degree_perm, permute_csr
+    from maxk_gnn.data.synthetic import rmat_graph
+    from maxk_gnn.parallel.shard import halo_stats
+    from maxk_gnn.sparse.hybrid import degree_perm, permute_csr
 
     g = rmat_graph(2048, 200_000, seed=3)
     pg = permute_csr(g, degree_perm(g))
@@ -364,7 +360,7 @@ def test_sharded_explicit_hybrid_on_directed_graph_raises(tiny_data):
 
     import scipy.sparse as sp
 
-    from maxk_tpu.sparse.csr import CSRGraph, csr_to_scipy
+    from maxk_gnn.sparse.csr import CSRGraph, csr_to_scipy
 
     m = csr_to_scipy(tiny_data.csr).tolil()
     # break symmetry: zero one directed edge that has a reverse twin
@@ -411,12 +407,12 @@ def test_collective_bytes_match_analytic(small_graph):
     exactly the modeled collectives (CBSR all_gather + cotangent
     reduce-scatter for maxk; dense all_gather + reduce-scatter for relu),
     byte for byte."""
-    from maxk_tpu.parallel.audit import (
+    from maxk_gnn.parallel.audit import (
         hlo_collectives,
         model_recv_bytes_fwd_bwd,
         recv_bytes_per_device,
     )
-    from maxk_tpu.sparse.cbsr import CBSR
+    from maxk_gnn.sparse.cbsr import CBSR
 
     mesh = make_mesh(N_DEV)
     sgraph = build_sharded_graph(small_graph, N_DEV, norm="right")
@@ -459,13 +455,13 @@ def test_collective_bytes_match_analytic(small_graph):
 def test_collective_bytes_match_analytic_hybrid(small_graph):
     """Sharded strip-hybrid fwd+bwd: compressed CBSR gather + cotangent
     gather + two (S, D) hub psums — and nothing else."""
-    from maxk_tpu.parallel.audit import (
+    from maxk_gnn.parallel.audit import (
         hlo_collectives,
         model_recv_bytes_fwd_bwd,
         recv_bytes_per_device,
     )
-    from maxk_tpu.sparse.cbsr import CBSR
-    from maxk_tpu.sparse.hybrid import degree_perm, permute_csr
+    from maxk_gnn.sparse.cbsr import CBSR
+    from maxk_gnn.sparse.hybrid import degree_perm, permute_csr
 
     pcsr = permute_csr(small_graph, degree_perm(small_graph))
     mesh = make_mesh(N_DEV)

@@ -5,8 +5,8 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 
-from maxk_tpu.sparse.cbsr import CBSR, cbsr_densify, cbsr_sample, maxk_cbsr, maxk_mask
-from maxk_tpu.sparse.csr import (
+from maxk_gnn.sparse.cbsr import CBSR, cbsr_densify, cbsr_sample, maxk_cbsr, maxk_mask
+from maxk_gnn.sparse.csr import (
     add_self_loops,
     csr_from_coo,
     csr_to_scipy,
@@ -14,7 +14,7 @@ from maxk_tpu.sparse.csr import (
     symmetrize,
     with_norm,
 )
-from maxk_tpu.sparse.meta import build_edge_tiles
+from maxk_gnn.sparse.meta import build_edge_tiles
 
 
 def test_csr_from_coo_dedup():
@@ -79,9 +79,14 @@ def test_cbsr_densify_blocked_matches():
     rng = np.random.default_rng(1)
     x = jnp.asarray(rng.standard_normal((1000, 32)), jnp.float32)
     cbsr = maxk_cbsr(x, 8)
-    d1 = cbsr_densify(cbsr, 32, block_rows=128)
-    d2 = cbsr_densify(cbsr, 32, block_rows=10**6)
-    np.testing.assert_allclose(np.asarray(d1), np.asarray(d2), atol=1e-6)
+    d1 = cbsr_densify(cbsr, 32)
+    # the same scatter built row block by row block on the host
+    d2 = np.zeros((1000, 32), np.float32)
+    vals, sel = np.asarray(cbsr.values), np.asarray(cbsr.selector)
+    for r0 in range(0, 1000, 128):
+        rows = np.arange(r0, min(r0 + 128, 1000))[:, None]
+        d2[rows, sel[rows[:, 0]]] = vals[rows[:, 0]]
+    np.testing.assert_array_equal(np.asarray(d1), d2)
 
 
 def test_cbsr_sample_inverts_densify():
@@ -129,8 +134,8 @@ def test_device_tiles_spmm_matches(small_graph):
     """On-device tile construction agrees with the host path via SpMM."""
     import jax.numpy as jnp
 
-    from maxk_tpu.ops.spmm_xla import spmm_tiles_xla, spmm_segsum
-    from maxk_tpu.sparse.meta import build_edge_tiles_device
+    from maxk_gnn.ops.spmm_xla import spmm_tiles_xla, spmm_segsum
+    from maxk_gnn.sparse.meta import build_edge_tiles_device
 
     tiles = build_edge_tiles_device(small_graph, 8, 64)
     rng = np.random.default_rng(3)
@@ -144,8 +149,8 @@ def test_device_tiles_exact_count():
     """Device builder emits EXACTLY the host builder's tables — the
     ceil(E/T)+NB bound used to append up to NB all-padding surplus tiles
     that the tail scan then gathered for nothing."""
-    from maxk_tpu.data.device_gen import rmat_graph_device
-    from maxk_tpu.sparse.meta import build_edge_tiles_device
+    from maxk_gnn.data.device_gen import rmat_graph_device
+    from maxk_gnn.sparse.meta import build_edge_tiles_device
 
     g = rmat_graph_device(700, 9000, seed=11)
     for r, t in [(8, 64), (32, 32), (8, 256)]:
@@ -161,8 +166,8 @@ def test_device_tiles_exact_count():
 
 
 def test_device_rmat_valid_csr():
-    from maxk_tpu.data.device_gen import rmat_graph_device
-    from maxk_tpu.sparse.csr import with_norm
+    from maxk_gnn.data.device_gen import rmat_graph_device
+    from maxk_gnn.sparse.csr import with_norm
 
     g = rmat_graph_device(300, 2000, seed=3)
     indptr = np.asarray(g.indptr)
@@ -201,8 +206,8 @@ def test_device_rmat_valid_csr():
 
 def test_reorder_rcm_preserves_spmm(small_graph):
     """RCM-permuted SpMM equals permuted original output."""
-    from maxk_tpu.ops.spmm_xla import spmm_segsum
-    from maxk_tpu.sparse.csr import reorder_rcm
+    from maxk_gnn.ops.spmm_xla import spmm_segsum
+    from maxk_gnn.sparse.csr import reorder_rcm
 
     g2, perm = reorder_rcm(small_graph)
     rng = np.random.default_rng(4)
@@ -232,9 +237,9 @@ def test_tiles_scan_window_exact():
     chunk whose inert tiles alias block nb-1 outside the window."""
     import jax.numpy as jnp
 
-    from maxk_tpu.data.device_gen import rmat_graph_device
-    from maxk_tpu.ops.spmm_xla import spmm_segsum, spmm_tiles_scan
-    from maxk_tpu.sparse.meta import build_edge_tiles, max_block_span
+    from maxk_gnn.data.device_gen import rmat_graph_device
+    from maxk_gnn.ops.spmm_xla import spmm_segsum, spmm_tiles_scan
+    from maxk_gnn.sparse.meta import build_edge_tiles, max_block_span
 
     g = rmat_graph_device(900, 12000, seed=13)
     tiles = build_edge_tiles(g, 8, 64)

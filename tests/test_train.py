@@ -5,10 +5,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from maxk_tpu.train.config import TrainConfig, parse_args
-from maxk_tpu.train.loop import evaluate, setup, train
-from maxk_tpu.train.metrics import compute_micro_f1, rocauc
-from maxk_tpu.train.optim import build_optimizer, lookahead
+from maxk_gnn.train.config import TrainConfig, parse_args
+from maxk_gnn.train.loop import evaluate, setup, train
+from maxk_gnn.train.metrics import compute_micro_f1, rocauc
+from maxk_gnn.train.optim import build_optimizer, lookahead
 
 
 def _cfg(**kw):
@@ -109,7 +109,7 @@ def test_lookahead_transform_math():
 def test_checkpoint_roundtrip(tmp_path, tiny_data):
     import jax
 
-    from maxk_tpu.train.checkpoint import (
+    from maxk_gnn.train.checkpoint import (
         latest_checkpoint,
         restore_checkpoint,
         save_checkpoint,
@@ -150,7 +150,7 @@ def test_evaluate_entrypoint(tiny_data):
 def test_checkpoint_resume_midtraining(tmp_path, tiny_data):
     """Train 10 epochs with checkpointing, kill, resume — final params
     must continue from the checkpoint (new capability vs reference)."""
-    from maxk_tpu.train.loop import train
+    from maxk_gnn.train.loop import train
 
     cfg = _cfg(epochs=6, checkpoint_every=2)
     s1 = train(cfg, tiny_data, checkpoint_dir=str(tmp_path))
@@ -181,7 +181,7 @@ def test_resume_matches_uninterrupted_run(tmp_path, tiny_data):
     """A resumed run must replay the exact loss trajectory of an
     uninterrupted one (per-epoch fold_in RNG + full-variables +
     opt_state round-trip) — with dropout active."""
-    from maxk_tpu.train.loop import train
+    from maxk_gnn.train.loop import train
 
     def cfg(epochs, ck=0):
         return _cfg(epochs=epochs, checkpoint_every=ck, dropout=0.3)
@@ -206,8 +206,8 @@ def test_multilabel_training(tiny_data):
     """yelp/proteins regime: multilabel BCE + micro-F1 path end-to-end."""
     import numpy as np
 
-    from maxk_tpu.data.datasets import GraphData
-    from maxk_tpu.data.synthetic import planted_partition_data
+    from maxk_gnn.data.datasets import GraphData
+    from maxk_gnn.data.synthetic import planted_partition_data
 
     feats, labels, masks = planted_partition_data(
         tiny_data.csr, 32, 6, seed=11, multilabel=True
@@ -230,7 +230,7 @@ def test_multilabel_training(tiny_data):
 
 
 def test_proteins_edge_feature_init(tiny_data):
-    from maxk_tpu.data.proteins import (
+    from maxk_gnn.data.proteins import (
         node_features_from_edges,
         synthetic_edge_features,
     )
